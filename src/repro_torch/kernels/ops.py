@@ -1,0 +1,62 @@
+"""Public wrappers around the kernels, dispatched per call (port of the
+``masked_gram`` / ``bucket_probe`` half of ``repro.kernels.ops``).
+
+Each resolves its lane through the :class:`ExecutionPolicy` from the
+operands' device (``ref`` = the plain PyTorch version, ``hopper`` = the
+CUDA kernel; an explicit ``lane=`` wins) and counts the decision.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.backend.policy import LANE_REF, default_policy
+from repro_torch.core.graph import CSRGraph, to_dense
+from repro_torch.kernels.bucket_probe import bucket_probe, bucket_probe_plain
+from repro_torch.kernels.triangle_count import masked_gram, masked_gram_plain
+
+
+def _resolve(op: str, device, lane: Optional[str]) -> str:
+    pol = default_policy()
+    lane = pol.lane(op, device, forced=lane)
+    pol.note(op, lane)
+    return lane
+
+
+def edge_similarities_gram(
+    g: CSRGraph, measure: str = "cosine",
+    *, lane: Optional[str] = None,
+) -> torch.Tensor:
+    """Exact σ per half-edge via the masked-gram product (triangle_count
+    op): the dense σ oracle, for graphs whose adjacency fits in memory."""
+    lane = _resolve("triangle_count", g.device, lane)
+    weighted = measure == "cosine"
+    w = to_dense(g, closed=True, weighted=weighted)
+    mask = (to_dense(g, closed=True, weighted=False) > 0).to(torch.float32)
+    gram = masked_gram_plain if lane == LANE_REF else masked_gram
+    prod = gram(w, mask)
+    eu, ev = g.edge_u.long(), g.nbrs.long()
+    dots = prod[eu, ev]
+    if measure == "cosine":
+        norms = torch.sqrt(torch.diagonal(prod))
+        return dots / (norms[eu] * norms[ev])
+    cdeg = g.closed_degrees().to(torch.float32)
+    union = cdeg[eu] + cdeg[ev] - dots
+    return dots / union
+
+
+def bucket_probe_stats(
+    rows_p: torch.Tensor,   # int32[e, P] sorted probe rows (pad id = n)
+    w_p: torch.Tensor,      # float32[e, P]
+    rows_t: torch.Tensor,   # int32[e, T] sorted target rows (pad id = n)
+    w_t: torch.Tensor,      # float32[e, T]
+    n: int,                 # vertex count (ids ≥ n are padding)
+    *,
+    lane: Optional[str] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(shared weighted dot, shared count) per edge via the bucket_probe
+    op. Rows follow the kernel's contract: sorted, pads (id ``n``) last."""
+    lane = _resolve("bucket_probe", rows_p.device, lane)
+    probe = bucket_probe_plain if lane == LANE_REF else bucket_probe
+    return probe(rows_p, w_p, rows_t, w_t, n)
