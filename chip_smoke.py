@@ -7,13 +7,14 @@ Phases, each printing its lines as it ends:
 
 1. device — the card's name and count, and ``nvidia-smi``'s name and
    power limit; no GPU fails at once.
-2. build — both CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
+2. build — all four CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
    (one ``nvcc`` each, in parallel), with ``-Xptxas -v``'s lines.
-3. graphs — the main path's inputs: (a) com-LiveJournal scale,
-   ``random_graph(3997962, 8.675, seed=0)`` (m ≈ 34.7M, average degree
-   ≈ 17.35); (b) skew, ``power_law_graph(262144, 2.1, avg_degree=16)``,
-   whose hubs span up to 64 tiles of 2048; (c) ``random_graph(8192, 16,
-   seed=1)`` for the dense σ oracle.
+3. graphs — (a) com-LiveJournal scale, ``random_graph(3997962, 8.675,
+   seed=0)`` (m ≈ 34.7M, average degree ≈ 17.35); (b) skew,
+   ``power_law_graph(262144, 2.1, avg_degree=16)``, whose hubs span up to
+   64 tiles of 2048; (c) ``random_graph(8192, 16, seed=1)`` for the dense
+   σ oracle; (d) ``random_graph(32768, 8.675, seed=2, weighted=True)`` for
+   the dense sketch (W̄ = 4 GiB).
 4. bucket_probe vs its plain version on the card: the first chunk of
    every (class pair, tile shape) group of (a) and (b), plus synthetic
    sorted rows; unweighted and weighted. Count and unweighted dot
@@ -31,14 +32,34 @@ Phases, each printing its lines as it ends:
    label is a core.
 7. oracle — bucketed σ equals masked-gram σ bit for bit on (c); its
    launches are counted and printed apart from the main path's.
+8. hamming_cosine vs its plain version: random sketches at e = 2^24 with
+   1, 4, 8 and 32 words, and (a)'s k = 256 sketches over all its edges.
+   diff and σ̂ bit-identical, σ̂ within 2 ULP of the float64 cosine of the
+   same float32 θ̂. Timed at (a)'s shape.
+9. dense sketch — ``ops.simhash_sketches_kernel`` on (d), k = 256,
+   counted on its own; simhash_pack vs its plain version: bit-identical on
+   exact inputs (0/1 W̄, R on a 2⁻⁸ grid), and on gaussian R every bit
+   whose |W̄·R| exceeds the forward error bound n·2⁻²⁴·(W̄·|R|) agrees with
+   the plain version and with the sparse sketch path. Timed beside
+   ``torch.matmul`` with TF32 off.
+10. approximate path — ``ApproxIndexBuilder("cosine", simhash:256)`` →
+    ``sweep_stats`` on (a) (degree heuristic on) and on (b) (on, and off:
+    pure sketch), each counted on its own, with stage seconds and peak
+    memory. Checks: hamming_cosine launched; bucket_probe launched once
+    per exact-subset chunk; two sketch runs bit-identical; sketched σ̂
+    equals the plain comparison; §6.3's exact σ equals the main path's;
+    cores equal θ ≥ ε. On (b), ARI and core precision / recall against
+    the exact index are printed, not gated.
 
 The last two lines are the kernels' JSON record (``launches`` is the
-main path's count on (a), ``launches_by_path`` each path's own) and
-``{"ok": true, "device": {...}}``. Every failed check raises, so the
-script exits non-zero with no result line.
+count on each kernel's own main path, named by ``main_path``;
+``launches_by_path`` gives every path's) and ``{"ok": true, "device":
+{...}}``. Every failed check raises, so the script exits non-zero with no
+result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -143,6 +164,9 @@ def phase_graphs() -> dict:
                                 device="cuda"))
     graphs["c"], secs["c"] = timed(
         lambda: random_graph(8192, 16, seed=1, device="cuda"))
+    graphs["d"], secs["d"] = timed(
+        lambda: random_graph(32768, 8.675, seed=2, weighted=True,
+                             device="cuda"))
     for k, g in graphs.items():
         deg = g.degrees()
         log(f"[graphs] ({k}) n={g.n} m={g.m} avg_degree={2 * g.m / g.n:.3f} "
@@ -283,7 +307,7 @@ def _main_path_graph(key: str, g, build_s: float) -> dict:
         compute_similarities, edge_similarities_subset,
     )
     from repro_torch.kernels import _build
-    from repro_torch.serve import grid_sweep, sweep_stats
+    from repro_torch.serve import sweep_stats
 
     _build.reset_launch_counts()
     sims, sigma_s = timed(lambda: compute_similarities(g))
@@ -328,6 +352,18 @@ def _main_path_graph(key: str, g, build_s: float) -> dict:
     check(torch.equal(closed_norms(gw), closed_norms(gw)),
           f"({key}) weighted closed_norms not bit-stable")
 
+    res = _check_sweep(key, index, g, rows)
+    log(f"[main] ({key}) checks passed: launches == chunks, {k}-edge σ "
+        f"sample == plain lane, weighted norms bit-stable, cores == θ ≥ ε "
+        f"and core labels are cores for {len(res)} settings")
+    return {"counts": counts, "index": index}
+
+
+def _check_sweep(key: str, index, g, rows):
+    """The sweep rows agree with the grid sweep; every setting's cores are
+    θ ≥ ε and every core's label is a core. Returns the grid sweep."""
+    from repro_torch.serve import grid_sweep
+
     res = grid_sweep(index, g, MUS, EPSS)
     check([r["n_clusters"] for r in rows] == res.n_clusters.tolist(),
           f"({key}) sweep rows disagree with the grid sweep")
@@ -338,19 +374,288 @@ def _main_path_graph(key: str, g, build_s: float) -> dict:
         labels, core = res.labels[i], res.is_core[i]
         check(bool(core[labels[core]].all()) if core.any() else True,
               f"({key}) a core's label is not a core at mu={mu} eps={eps}")
-    log(f"[main] ({key}) checks passed: launches == chunks, {k}-edge σ "
-        f"sample == plain lane, weighted norms bit-stable, cores == θ ≥ ε "
-        f"and core labels are cores for {len(res)} settings")
-    return counts
+    return res
 
 
 def phase_main(graphs: dict, build_s: dict) -> dict:
     """The main path on (a) and (b), each counted on its own; returns
-    ``{path: launch counts}``."""
+    ``{path: {"counts": launch counts, "index": its index}}``."""
     per_path = {}
     for key in ("a", "b"):
         torch.cuda.reset_peak_memory_stats()
         per_path[key] = _main_path_graph(key, graphs[key], build_s[key])
+    return per_path
+
+
+# ------------------------------------------------------ the approximate path
+def f32_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in float32 units in the last place."""
+    d = a.view(torch.int32).long() - b.view(torch.int32).long()
+    return int(d.abs().max()) if d.numel() else 0
+
+
+def _hamming_compare(sk, eu, ev, samples: int, label: str) -> float:
+    """Kernel vs plain on one input; returns the largest |σ̂ difference|.
+    The kernel writes σ̂ alone; σ̂ bit-identical to the plain version's
+    means diff identical too, because the samples + 1 levels of σ̂ are
+    distinct floats (checked here)."""
+    from repro_torch.kernels.hamming import (
+        cosine_of_diff, hamming_cosine, hamming_cosine_plain, theta_of_diff,
+    )
+
+    levels = cosine_of_diff(torch.arange(samples + 1, device=sk.device,
+                                         dtype=torch.int32), samples)
+    check(levels.unique().numel() == samples + 1,
+          f"σ̂ levels are not one-to-one with diff at samples={samples}")
+    sim = hamming_cosine(sk, eu, ev, samples)
+    psim, pdiff = hamming_cosine_plain(sk, eu, ev, samples, return_diff=True)
+    sync()
+    check(torch.equal(sim.view(torch.int32), psim.view(torch.int32)),
+          f"hamming σ̂ differs from the plain version ({label})")
+    # cosf's bound: the float64 cosine of the same float32 argument θ̂
+    exact = torch.cos(theta_of_diff(pdiff, samples).double()).float()
+    ulp = f32_ulps(sim, exact)
+    check(ulp <= 2, f"hamming σ̂ {ulp} ULP from the float64 cosine ({label})")
+    log(f"[hamming_cosine] {label}: σ̂ (so diff) bit-identical to plain, "
+        f"σ̂ within {ulp} ULP of float64 cos(θ̂)")
+    return float((sim - psim).abs().max()) if sim.numel() else 0.0
+
+
+def phase_hamming(graphs: dict) -> dict:
+    """hamming_cosine vs its plain version: random sketches at e = 2^24,
+    words ∈ {1, 4, 8, 32}, and (a)'s own k = 256 sketches over all of its
+    edges; timed at (a)'s shape."""
+    from repro_torch.core.lsh import simhash_sketches
+    from repro_torch.kernels.hamming import hamming_cosine, hamming_cosine_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    e, n = 1 << 24, 1 << 20
+    errs = []
+    for words in (1, 4, 8, 32):
+        sk = torch.randint(-2 ** 31, 2 ** 31, (n, words), generator=gen,
+                           device="cuda", dtype=torch.int64)
+        sk = sk.to(torch.int32).view(torch.uint32)
+        eu = torch.randint(0, n, (e,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        ev = torch.randint(0, n, (e,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        errs.append(_hamming_compare(sk, eu, ev, 32 * words,
+                                     f"random e={e} words={words}"))
+    del sk, eu, ev
+    g = graphs["a"]
+    sk = simhash_sketches(g, 256, 0)
+    errs.append(_hamming_compare(sk, g.edge_u, g.nbrs, 256,
+                                 f"(a) sketches e={g.m2} words={sk.shape[1]}"))
+    ms = cuda_ms(lambda: hamming_cosine(sk, g.edge_u, g.nbrs, 256), reps=20)
+    plain_ms = cuda_ms(
+        lambda: hamming_cosine_plain(sk, g.edge_u, g.nbrs, 256), reps=3)
+    # the bound: what the function must move, two ids read and σ̂ written
+    # per edge (12 B) and the sketch table read once
+    row_bytes = 4 * sk.shape[1]
+    nbytes = g.m2 * 12 + g.n * row_bytes
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # for reference, not the bound: every ev row read as its own sectors
+    # (random in CSR order), the eu rows once
+    gather_bytes = nbytes + g.m2 * row_bytes
+    gather_ms = gather_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[hamming_cosine] (a) shape e={g.m2} words={sk.shape[1]}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(bytes: {nbytes}), random-gather time {gather_ms:.4f} ms "
+        f"(bytes: {gather_bytes})")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def _bits(words: torch.Tensor) -> torch.Tensor:
+    """uint32[n, w] → int64[n, 32w] of 0/1 (bit s of word j at 32j+s)."""
+    shifts = torch.arange(32, device=words.device)
+    x = words.view(torch.int32).long()[:, :, None] >> shifts
+    return (x & 1).reshape(words.shape[0], -1)
+
+
+def phase_dense_sketch(g) -> tuple:
+    """simhash_pack vs its plain version on (d), and the dense sketch path
+    (``ops.simhash_sketches_kernel``) counted on its own. Returns (kernel
+    record, launch counts of the path)."""
+    from repro_torch.core.graph import to_dense
+    from repro_torch.core.lsh import projections, simhash_sketches
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.simhash import simhash_pack, simhash_pack_plain
+    from repro_torch.kernels.triangle_count import ieee_fp32_matmul
+
+    n, k = g.n, 256
+    _build.reset_launch_counts()
+    dense, dense_s = timed(lambda: ops.simhash_sketches_kernel(g, k, 0))
+    counts = _build.launch_counts()
+    check(counts["simhash_pack"] >= 1,
+          f"(d) the dense sketch path launched no simhash_pack: {counts}")
+    check(tuple(dense.shape) == (n, k // 32), "(d) dense sketch shape")
+
+    # exact inputs: 0/1 closed adjacency, R on a 2^-8 grid in [-4, 4]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w01 = to_dense(g, closed=True, weighted=False)
+    rq = torch.randint(-1024, 1025, (n, k), generator=gen,
+                       device="cuda").float() / 256
+    check(torch.equal(simhash_pack(w01, rq).view(torch.int32),
+                      simhash_pack_plain(w01, rq).view(torch.int32)),
+          "(d) simhash_pack differs on exact inputs")
+    del w01, rq
+
+    # gaussian R (the path's own), weighted closed adjacency
+    w = to_dense(g, closed=True, weighted=True)
+    r = projections(0, 0, k // 32, n, "cuda")
+    got = simhash_pack(w, r)
+    check(torch.equal(got.view(torch.int32), dense.view(torch.int32)),
+          "(d) simhash_pack != ops.simhash_sketches_kernel on equal inputs")
+    want = simhash_pack_plain(w, r)
+    w64 = w.double()
+    s = w64 @ r.double()
+    bound = n * 2.0 ** -24 * (w64 @ r.double().abs())   # w ≥ 0
+    del w64
+    safe = s.abs() > bound
+    b_got, b_want = _bits(got), _bits(want)
+    # the error measure of a sign bit: |bit difference| outside the bound
+    err = float((b_got[safe] - b_want[safe]).abs().max())
+    check(err == 0.0,
+          "(d) simhash_pack bits differ outside the forward error bound")
+    inside = int((b_got != b_want).sum())
+    sparse = _bits(simhash_sketches(g, k, 0))
+    check(torch.equal(sparse[safe], b_got[safe]),
+          "(d) dense sketch != sparse sketch outside the error bound")
+    log(f"[simhash_pack] (d) n={n} k={k}: exact inputs bit-identical; "
+        f"gaussian: all {int(safe.sum())} bits outside the bound agree with "
+        f"plain and with the sparse path, {inside} of "
+        f"{int((~safe).sum())} inside it differ from plain, "
+        f"{int((sparse != b_got).sum())} from the sparse path; dense path "
+        f"{dense_s:.3f}s, launches {counts}")
+    del s, bound, safe, b_got, b_want, sparse
+
+    ms = cuda_ms(lambda: simhash_pack(w, r), reps=5)
+    plain_ms = cuda_ms(lambda: simhash_pack_plain(w, r), reps=5)
+    with ieee_fp32_matmul():
+        library_ms = cuda_ms(lambda: torch.matmul(w, r), reps=5)
+    flop_ms = 2 * n * n * k / FP32_FLOP_PER_S * 1e3
+    byte_ms = (4 * n * n + 4 * n * k + n * k // 8) / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    log(f"[simhash_pack] n={n} k={k}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.matmul (TF32 off) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms (operations {flop_ms:.4f}, bytes "
+        f"{byte_ms:.4f})")
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+           "library_ms": library_ms}
+    return rec, counts
+
+
+class StageTracer:
+    """Seconds per span name; synchronises the card at each edge."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+
+    @contextlib.contextmanager
+    def span(self, name, **attrs):
+        sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            sync()
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+
+
+def _approx_path(key: str, g, exact_sims, heuristic: bool) -> dict:
+    """Drive ``ApproxIndexBuilder("cosine", simhash:256)`` → ``sweep_stats``
+    on one graph, with the launch counts set to 0 just before and read
+    just after; then check it. Returns its counts and its index."""
+    from repro_torch.core import ApproxIndexBuilder, ApproxParams, plan_for
+    from repro_torch.core.lsh import exact_edge_mask, simhash_sketches
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.hamming import hamming_cosine_plain
+    from repro_torch.serve import sweep_stats
+
+    params = dataclasses.replace(ApproxParams.parse("simhash:256"),
+                                 degree_heuristic=heuristic)
+    tracer = StageTracer()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    (index, prov), build_s = timed(
+        lambda: ApproxIndexBuilder("cosine", params).build(g, tracer=tracer))
+    chunks = plan_for(g).last_chunks if heuristic else 0
+    rows, sweep_s = timed(lambda: sweep_stats(index, g, MUS, EPSS))
+    counts = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    exact = (exact_edge_mask(g, "cosine", params.samples) if heuristic
+             else torch.zeros(g.m2, dtype=torch.bool, device="cuda"))
+    sketched = ~exact
+    st = tracer.seconds
+    log(f"[approx] ({key}) {prov.describe()}: n={g.n} m={g.m} "
+        f"sketched_share={float(sketched.float().mean()):.6f} "
+        f"exact_chunks={chunks} launches={counts} build_s={build_s:.3f} "
+        f"sketch_s={st.get('lsh.sketch', 0.0):.3f} "
+        f"hamming_s={st.get('lsh.compare', 0.0):.3f} "
+        f"exact_subset_s={st.get('lsh.exact', 0.0):.3f} "
+        f"orders_s={st.get('index.orders', 0.0):.3f} "
+        f"sweep_s={sweep_s:.3f} max_mem_gb={peak_gb:.2f}")
+    check(counts["hamming_cosine"] >= 1,
+          f"({key}) the approximate path launched no hamming_cosine")
+    check(counts["bucket_probe"] == chunks,
+          f"({key}) {counts['bucket_probe']} bucket_probe launches for "
+          f"{chunks} exact-subset chunks")
+    sk = simhash_sketches(g, params.samples, params.seed)
+    check(torch.equal(sk.view(torch.int32),
+                      simhash_sketches(g, params.samples, params.seed)
+                      .view(torch.int32)),
+          f"({key}) two sketch runs differ")
+    idx = torch.nonzero(sketched).flatten()
+    plain = torch.clamp(hamming_cosine_plain(
+        sk, g.edge_u[idx], g.nbrs[idx], params.samples), 0.0, 1.0)
+    check(torch.equal(index.edge_sims[idx], plain),
+          f"({key}) sketched σ̂ != hamming_cosine_plain σ̂")
+    check(torch.equal(index.edge_sims[exact], exact_sims[exact]),
+          f"({key}) §6.3 exact σ != the main path's σ")
+    res = _check_sweep(key, index, g, rows)
+    log(f"[approx] ({key}) checks passed: hamming launched, bucket_probe "
+        f"launches == exact chunks, sketches bit-stable, {idx.numel()} "
+        f"sketched σ̂ == plain, {int(exact.sum())} exact σ == main path, "
+        f"cores == θ ≥ ε for {len(res)} settings")
+    return {"counts": counts, "index": index, "sweep": res}
+
+
+def _quality(key: str, exact_res, approx_res) -> None:
+    from repro_torch.core.quality import (
+        adjusted_rand_index, core_precision_recall,
+    )
+
+    aris = np.asarray([adjusted_rand_index(e, a) for e, a in
+                       zip(exact_res.labels, approx_res.labels)])
+    pr = np.asarray([core_precision_recall(a, e) for e, a in
+                     zip(exact_res.is_core, approx_res.is_core)])
+    log(f"[approx] ({key}) quality vs the exact index over {len(aris)} "
+        f"settings: mean ARI {aris.mean():.4f}, ARI >= 0.8 share "
+        f"{np.mean(aris >= 0.8):.4f}, core precision {pr[:, 0].mean():.4f}, "
+        f"core recall {pr[:, 1].mean():.4f}")
+
+
+def phase_approx(graphs: dict, main: dict) -> dict:
+    """The approximate path on (a) (degree heuristic on) and on (b) with
+    the heuristic on and off; returns ``{path: launch counts}``."""
+    from repro_torch.serve import grid_sweep
+
+    per_path = {}
+    out = _approx_path("a", graphs["a"], main["a"]["index"].edge_sims, True)
+    per_path["approx_a"] = out["counts"]
+    del out
+    exact_b = main["b"]["index"]
+    exact_res = grid_sweep(exact_b, graphs["b"], MUS, EPSS)
+    for path, heuristic in (("approx_b", True), ("approx_b_pure", False)):
+        out = _approx_path(path.replace("approx_", ""), graphs["b"],
+                           exact_b.edge_sims, heuristic)
+        per_path[path] = out["counts"]
+        _quality(path, exact_res, out["sweep"])
     return per_path
 
 
@@ -368,7 +673,7 @@ def phase_oracle(graph) -> None:
         check(torch.equal(bucketed, dense),
               f"(c) bucketed σ != masked-gram σ for {measure}")
     counts = _build.launch_counts()
-    check(all(v > 0 for v in counts.values()),
+    check(counts["bucket_probe"] > 0 and counts["masked_gram"] > 0,
           f"(c) the cross-check skipped a kernel: {counts}")
     log(f"[oracle] (c) n={graph.n} m={graph.m}: bucketed σ == masked-gram σ "
         f"bit for bit (cosine, jaccard); launches {counts}")
@@ -384,21 +689,42 @@ def main() -> None:
     graphs = inputs["graphs"]
     probe = phase_bucket_probe(graphs)
     gram = phase_masked_gram(graphs)
-    per_path = phase_main(graphs, inputs["build_s"])
+    main_paths = phase_main(graphs, inputs["build_s"])
     phase_oracle(graphs["c"])
-    # launches: the main path at full scale, (a); each path's own count
-    # (set to 0 before it, read after it) beside it
+    hamming = phase_hamming(graphs)
+    pack, dense_counts = phase_dense_sketch(graphs["d"])
+    per_path = {p: out["counts"] for p, out in main_paths.items()}
+    per_path.update(phase_approx(graphs, main_paths))
+    per_path["dense_sketch"] = dense_counts
+    # launches: each kernel's own main path (bucket_probe and masked_gram:
+    # the exact path on (a); hamming_cosine: the approximate path on (a);
+    # simhash_pack: the dense sketch path), every path's count beside it
     kernels = [
         dict(name="bucket_probe", route="cuda",
              source="src/repro_torch/csrc/bucket_probe.cu",
-             replaces="src/repro/kernels/bucket_probe.py:73", **probe),
+             replaces="src/repro/kernels/bucket_probe.py:73",
+             main_path="a", **probe),
         dict(name="masked_gram", route="cuda",
              source="src/repro_torch/csrc/masked_gram.cu",
-             replaces="src/repro/kernels/triangle_count.py:62", **gram),
+             replaces="src/repro/kernels/triangle_count.py:62",
+             main_path="a", **gram),
+        dict(name="hamming_cosine", route="cuda",
+             source="src/repro_torch/csrc/hamming_cosine.cu",
+             replaces="src/repro/kernels/hamming.py:50",
+             main_path="approx_a", **hamming),
+        dict(name="simhash_pack", route="cuda",
+             source="src/repro_torch/csrc/simhash_pack.cu",
+             replaces="src/repro/kernels/simhash.py:61",
+             main_path="dense_sketch", **pack),
     ]
     for k in kernels:
-        k["launches"] = per_path["a"][k["name"]]
+        k["launches"] = per_path[k["main_path"]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in per_path.items()}
+    for path in ("approx_a", "approx_b", "approx_b_pure"):
+        check(per_path[path]["hamming_cosine"] >= 1,
+              f"{path}: no hamming_cosine launch")
+    check(per_path["dense_sketch"]["simhash_pack"] >= 1,
+          "dense_sketch: no simhash_pack launch")
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ LANES = (LANE_REF, LANE_HOPPER)
 OPS = {
     "bucket_probe": LANES,
     "triangle_count": LANES,
+    "simhash": LANES,
+    "hamming": LANES,
     "query": (LANE_REF,),       # (μ, ε) query path is plain torch ops
 }
 

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import lsh as lsh_mod
 from repro_torch.core import similarity as sim_mod
 from repro_torch.core.graph import CSRGraph
 
@@ -102,16 +103,21 @@ def build_index(
     g: CSRGraph,
     measure: str = "cosine",
     *,
-    approx: Optional[str] = None,
+    approx: Optional[str] = None,   # None | "simhash" | "minhash" | "kpartition"
+    samples: int = 64,
+    seed: int = 0,
+    degree_heuristic: bool = True,
     sims=None,   # precomputed σ override (testing)
 ) -> ScanIndex:
-    """Construct the exact SCAN index on the graph's device."""
-    if approx is not None:
-        raise NotImplementedError(
-            "approximate (LSH) similarities are not ported yet: they come "
-            "with the approximate-path slice (simhash / hamming kernels)")
+    """Construct the SCAN index (exact or LSH-approximate similarities) on
+    the graph's device."""
     if sims is None:
-        sims = sim_mod.compute_similarities(g, measure)
+        if approx is None:
+            sims = sim_mod.compute_similarities(g, measure)
+        else:
+            sims = lsh_mod.approximate_similarities(
+                g, measure=measure, method=approx, samples=samples,
+                seed=seed, degree_heuristic=degree_heuristic)
     if not isinstance(sims, torch.Tensor):
         sims = torch.from_numpy(np.array(sims, dtype=np.float32))
     sims = torch.clamp(sims.to(device=g.device, dtype=torch.float32),

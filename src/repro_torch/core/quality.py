@@ -88,17 +88,20 @@ def adjusted_rand_index(labels_a: np.ndarray, labels_b: np.ndarray) -> float:
     n = len(a)
     if len(b) != n:
         raise ValueError(f"label lengths differ: {n} vs {len(b)}")
-    ca, cb = a.max() + 1, b.max() + 1
-    cont = np.zeros((ca, cb), dtype=np.int64)
-    np.add.at(cont, (a, b), 1)
+    # the contingency table's nonzero cells only: unclustered vertices are
+    # singleton clusters, so a dense [ca, cb] table is O(n²) at scale.
+    # comb2 of each count is an integer (exact in float64), so the sums
+    # equal the reference's dense ones.
+    cb = int(b.max()) + 1
+    cells = np.unique(a.astype(np.int64) * cb + b, return_counts=True)[1]
 
     def comb2(x):
         x = np.asarray(x, dtype=np.float64)
         return x * (x - 1) / 2.0
 
-    sum_ij = comb2(cont).sum()
-    sum_a = comb2(cont.sum(axis=1)).sum()
-    sum_b = comb2(cont.sum(axis=0)).sum()
+    sum_ij = comb2(cells).sum()
+    sum_a = comb2(np.bincount(a)).sum()
+    sum_b = comb2(np.bincount(b)).sum()
     total = comb2(np.array([n]))[0]
     if total == 0:
         return 1.0

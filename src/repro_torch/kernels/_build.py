@@ -34,7 +34,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("bucket_probe", "masked_gram")
+KERNELS = ("bucket_probe", "masked_gram", "hamming_cosine", "simhash_pack")
 
 
 @dataclasses.dataclass(frozen=True)

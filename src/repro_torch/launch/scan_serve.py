@@ -1,12 +1,16 @@
 """SCAN sweep launcher (port of the ``sweep`` subcommand of
 ``repro.launch.scan_serve``).
 
-Build the exact index of a synthetic graph and print a (μ, ε)
-parameter-sweep table, the same table the reference CLI prints:
+Build the index of a synthetic graph, exact or LSH-approximate, and print
+a (μ, ε) parameter-sweep table, the same table the reference CLI prints:
 
     # on the GPU (the default device)
     PYTHONPATH=src python -m repro_torch.launch.scan_serve sweep \\
         --n 8192 --avg-degree 16 --mus 2,4,8 --epss 0.2:0.8:7
+
+    # the approximate (SimHash, 256 samples) index
+    PYTHONPATH=src python -m repro_torch.launch.scan_serve sweep \\
+        --n 8192 --approx simhash:256
 
     # on the CPU
     PYTHONPATH=src python -m repro_torch.launch.scan_serve sweep \\
@@ -14,8 +18,7 @@ parameter-sweep table, the same table the reference CLI prints:
 
 ``--device`` defaults to ``cuda``; without CUDA the command fails rather
 than running on the CPU. The ``serve``, ``update`` and ``fleet``
-subcommands, ``--load``/``--save``, ``--shards`` and ``--approx`` are not
-ported yet.
+subcommands, ``--load``/``--save`` and ``--shards`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,18 +39,26 @@ def parse_values(spec: str, kind):
 def get_index(args):
     import torch
 
-    from repro_torch.core import build_index, random_graph
+    from repro_torch.core import (
+        ApproxIndexBuilder, ApproxParams, build_index, random_graph,
+    )
     from repro_torch.serve import index_fingerprint
 
     g = random_graph(args.n, args.avg_degree, seed=args.seed,
                      weighted=args.weighted,
                      planted_clusters=args.clusters, device=args.device)
     t0 = time.time()
-    index = build_index(g, args.measure)
+    if args.approx:
+        builder = ApproxIndexBuilder(args.measure,
+                                     ApproxParams.parse(args.approx))
+        index, provenance = builder.build(g)
+        kind = provenance.describe()
+    else:
+        index, kind = build_index(g, args.measure), "exact"
     if g.device.type == "cuda":
         torch.cuda.synchronize(g.device)
     fp = index_fingerprint(index, g)
-    print(f"built exact index in {time.time() - t0:.2f}s "
+    print(f"built {kind} index in {time.time() - t0:.2f}s "
           f"(n={g.n}, m={g.m}, seed={args.seed}, fingerprint={fp[:12]}, "
           f"device={g.device})")
     return index, g, fp
@@ -89,6 +100,9 @@ def main(argv=None):
     p.add_argument("--weighted", action="store_true")
     p.add_argument("--measure", default="cosine",
                    choices=("cosine", "jaccard"))
+    p.add_argument("--approx", metavar="METHOD[:K[:SEED]]",
+                   help="build the LSH-sketched (approximate) index, e.g. "
+                   "simhash:256 or minhash:128:7")
     p.add_argument("--mus", default="2,4,8")
     p.add_argument("--epss", default="0.1:0.9:9")
     p.add_argument("--device", default="cuda",

@@ -4,8 +4,10 @@
 Bars: counts and unweighted dots bit-identical, weighted dots
 ``rtol=1e-6`` (sums taken in another order); masked gram at the
 reference's own ``rtol=2e-4, atol=2e-3`` for gaussian W, bit-identical for
-0/1 adjacency (integer sums are exact in any order)."""
-import jax  # noqa: F401
+0/1 adjacency (integer sums are exact in any order); packed SimHash words
+and Hamming distances bit-identical, σ̂ within 1 ULP (``torch.cos`` and
+XLA's cos differ by an ULP on some inputs)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,11 +17,15 @@ from repro.core import graph as rg
 from repro.kernels import ops as rops
 from repro.kernels import ref as kref
 from repro.kernels.bucket_probe import bucket_probe as ref_bucket_probe
+from repro.kernels.hamming import hamming_cosine as ref_hamming_cosine
+from repro.kernels.simhash import simhash_pack as ref_simhash_pack
 from repro.kernels.triangle_count import masked_gram as ref_masked_gram
 from repro_torch.core import graph as tg
 from repro_torch.kernels import bucket_probe as bp_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.bucket_probe import bucket_probe_plain
+from repro_torch.kernels.hamming import hamming_cosine_plain
+from repro_torch.kernels.simhash import simhash_pack_plain
 from repro_torch.kernels.triangle_count import masked_gram_plain
 
 
@@ -141,3 +147,77 @@ def test_edge_similarities_gram_vs_reference(measure, weighted):
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+def u32(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int32).numpy().view(np.uint32)
+
+
+def f32_ulps(a, b) -> int:
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.max(np.abs(a - b)))
+
+
+@pytest.mark.parametrize("e,words,k", [(1024, 4, 128), (2048, 8, 256),
+                                       (1024, 1, 32)])
+def test_hamming_cosine_plain_vs_pallas(e, words, k):
+    rng = np.random.default_rng(e + words)
+    su = rng.integers(0, 2 ** 32, size=(e, words), dtype=np.uint32)
+    sv = rng.integers(0, 2 ** 32, size=(e, words), dtype=np.uint32)
+    sk = torch.from_numpy(np.concatenate([su, sv]).view(np.int32)) \
+        .view(torch.uint32)
+    eu = torch.arange(e, dtype=torch.int32)
+    sim, diff = hamming_cosine_plain(sk, eu, eu + e, k, return_diff=True)
+    np.testing.assert_array_equal(diff.numpy(),
+                                  np.bitwise_count(su ^ sv).sum(axis=1))
+    want = ref_hamming_cosine(jnp.asarray(su), jnp.asarray(sv), samples=k,
+                              be=512, interpret=True)
+    oracle = jax.jit(kref.hamming_cosine_ref, static_argnums=2)(
+        jnp.asarray(su), jnp.asarray(sv), k)
+    assert f32_ulps(sim.numpy(), want) <= 1
+    assert f32_ulps(sim.numpy(), oracle) <= 1
+
+
+@pytest.mark.parametrize("n,k", [(128, 128), (256, 256), (128, 384)])
+def test_simhash_pack_plain_vs_pallas(n, k):
+    rng = np.random.default_rng(n + k)
+    w = rng.standard_normal((n, n)).astype(np.float32)
+    r = rng.standard_normal((n, k)).astype(np.float32)
+    got = u32(simhash_pack_plain(torch.from_numpy(w), torch.from_numpy(r)))
+    want = ref_simhash_pack(jnp.asarray(w), jnp.asarray(r), interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(
+        got, np.asarray(kref.simhash_pack_ref(jnp.asarray(w), jnp.asarray(r))))
+
+
+@pytest.mark.parametrize("samples", [64, 200])
+def test_simhash_sketches_kernel_vs_reference(monkeypatch, samples):
+    """The dense form with the reference's R injected: the port reads R
+    a word (32 columns) at a time from the reference's one draw."""
+    from repro_torch.core import lsh as tl
+
+    gr = rg.random_graph(150, 6.0, seed=7, weighted=True)
+    gt = tg.random_graph(150, 6.0, seed=7, weighted=True, device="cpu")
+    key = jax.random.PRNGKey(5)
+    k_pad = max((samples + 127) // 128 * 128, 128)
+    r = np.array(jax.random.normal(key, (gr.n, k_pad), dtype=jnp.float32))
+    monkeypatch.setattr(
+        tl, "_word_projections", lambda seed, word, n, device:
+        torch.from_numpy(r[:, 32 * word: 32 * word + 32].copy()))
+    want = np.asarray(rops.simhash_sketches_kernel(gr, samples, key,
+                                                   lane="ref"))
+    got = ops.simhash_sketches_kernel(gt, samples, seed=0)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(u32(got), want)
+    sim = ops.simhash_edge_similarity_kernel(got, gt.edge_u, gt.nbrs,
+                                             samples)
+    ref_sim = rops.simhash_edge_similarity_kernel(
+        jnp.asarray(want), gr.edge_u, gr.nbrs, samples, lane="ref")
+    diff = np.bitwise_count(want[np.asarray(gr.edge_u)]
+                            ^ want[np.asarray(gr.nbrs)]).sum(axis=1)
+    np.testing.assert_array_equal(
+        hamming_cosine_plain(got, gt.edge_u, gt.nbrs, samples,
+                             return_diff=True)[1].numpy(), diff)
+    if samples & (samples - 1) == 0:   # XLA folds π/k into one constant
+        assert f32_ulps(sim.numpy(), ref_sim) <= 1

@@ -18,8 +18,10 @@ from repro_torch.backend import (
     LANE_HOPPER, LANE_REF, AutotuneProfile, ExecutionPolicy,
 )
 from repro_torch.core import graph as tg
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.bucket_probe import bucket_probe, bucket_probe_plain
+from repro_torch.kernels.hamming import hamming_cosine, hamming_cosine_plain
+from repro_torch.kernels.simhash import simhash_pack, simhash_pack_plain
 from repro_torch.kernels.triangle_count import masked_gram, masked_gram_plain
 from repro_torch.launch import scan_serve
 
@@ -74,8 +76,10 @@ def no_cuda(monkeypatch):
     lambda: interop.graph_from_arrays(interop.graph_to_arrays(
         tg.from_edge_list(3, [(0, 1)], device="cpu"))),
     lambda: scan_serve.main(["sweep", "--n", "16"]),
+    lambda: scan_serve.main(["sweep", "--n", "16", "--approx", "simhash:32"]),
 ], ids=["random_graph", "power_law_graph", "hub_ring_graph",
-        "from_edge_list", "graph_from_dense", "graph_from_arrays", "cli"])
+        "from_edge_list", "graph_from_dense", "graph_from_arrays", "cli",
+        "cli-approx"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, make):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -112,6 +116,16 @@ def test_wrappers_on_cpu_tensors_use_plain_version_and_count_nothing():
     a = torch.from_numpy(rng.standard_normal((5, 5)).astype(np.float32))
     m = torch.ones((5, 5))
     assert torch.equal(masked_gram(a, m), masked_gram_plain(a, m))
+    sk = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (6, 2),
+                                       dtype=np.int64).astype(np.int32))
+    sk = sk.view(torch.uint32)
+    eu = torch.tensor([0, 1, 5], dtype=torch.int32)
+    ev = torch.tensor([2, 1, 3], dtype=torch.int32)
+    assert torch.equal(hamming_cosine(sk, eu, ev, 64),
+                       hamming_cosine_plain(sk, eu, ev, 64))
+    r = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
+    assert torch.equal(simhash_pack(a, r).view(torch.int32),
+                       simhash_pack_plain(a, r).view(torch.int32))
     assert _build.launch_counts() == before
 
 
@@ -122,6 +136,14 @@ def test_wrappers_reject_bad_operands():
         bucket_probe(ids, w, ids, w, 10)
     with pytest.raises(ValueError):
         masked_gram(torch.ones((3, 4)), torch.ones((3, 4)))
+    sk = torch.zeros((4, 2), dtype=torch.int32)
+    e = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        hamming_cosine(sk, e, e, 64)                 # sketches not uint32
+    with pytest.raises(TypeError):
+        hamming_cosine(sk.view(torch.uint32), e.long(), e.long(), 64)
+    with pytest.raises(ValueError):
+        simhash_pack(torch.ones((4, 4)), torch.ones((4, 40)))   # k % 32
 
 
 def test_policy_lane_follows_device():
@@ -137,8 +159,23 @@ def test_policy_lane_follows_device():
         pol.lane("bucket_probe", cpu, forced="hopper")  # no silent fallback
     with pytest.raises(ValueError):
         pol.lane("bucket_probe", cpu, forced="pallas-compiled")
+    for op in ("simhash", "hamming"):
+        assert pol.lane(op, cpu) == LANE_REF
+        assert pol.lane(op, cuda) == LANE_HOPPER
+        with pytest.raises(ValueError):
+            pol.lane(op, cpu, forced="hopper")
     pol.note("bucket_probe", LANE_REF, 3)
     assert pol.counts == {"bucket_probe.ref": 3}
+
+
+def test_forced_hopper_on_cpu_tensors_raises_in_the_wrappers():
+    g = tg.random_graph(16, 3.0, device="cpu")
+    with pytest.raises(ValueError, match="hopper"):
+        ops.simhash_sketches_kernel(g, 32, lane="hopper")
+    sk = ops.simhash_sketches_kernel(g, 32)
+    with pytest.raises(ValueError, match="hopper"):
+        ops.simhash_edge_similarity_kernel(sk, g.edge_u, g.nbrs, 32,
+                                           lane="hopper")
 
 
 def test_profile_matches_reference_defaults_and_round_trips():
